@@ -2,8 +2,8 @@
 
 Analogue of the reference's distributed-memory examples
 (``examples/sep_dm_full_chain.c``): the matrices are sharded over a
-``jax.sharding.Mesh``; on a pod slice, initialize ``jax.distributed`` first
-and use all devices.
+``jax.sharding.Mesh`` (all local devices, e.g. the GPUs of one host; on
+several hosts, initialize ``jax.distributed`` first).
 
 Run (single host, 8 virtual devices):
   XLA_FLAGS=--xla_force_host_platform_device_count=8 JAX_PLATFORMS=cpu \\
@@ -18,16 +18,11 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import numpy as np
 import jax
 
-if os.environ.get("JAX_PLATFORMS"):
-    try:
-        jax.config.update("jax_platforms", os.environ["JAX_PLATFORMS"])
-    except Exception:
-        pass
 jax.config.update("jax_enable_x64", True)
 
-from starneig_tpu.api import sep_dm
-from starneig_tpu.parallel import make_mesh, distr_matrix_from_array
-from starneig_tpu.testing import residual_sep
+from starneig_jax.api import sep_dm
+from starneig_jax.parallel import make_mesh, distr_matrix_from_array
+from starneig_jax.testing import residual_sep
 
 
 def main(n: int = 256) -> None:

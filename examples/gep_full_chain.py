@@ -13,15 +13,10 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import numpy as np
 import jax
 
-if os.environ.get("JAX_PLATFORMS"):
-    try:
-        jax.config.update("jax_platforms", os.environ["JAX_PLATFORMS"])
-    except Exception:
-        pass
 jax.config.update("jax_enable_x64", True)
 
-from starneig_tpu.api import gep
-from starneig_tpu.testing import residual_gep, orthogonality
+from starneig_jax.api import gep
+from starneig_jax.testing import residual_gep, orthogonality
 
 
 def main(n: int = 200) -> None:

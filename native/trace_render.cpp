@@ -1,9 +1,9 @@
-// Trace renderer: turns starneig_tpu trace JSON into matrix-activity images.
+// Trace renderer: turns starneig_jax trace JSON into matrix-activity images.
 //
 // Native analogue of the reference's event parser
 // (misc/event_parser/parse.cpp, C++/CImg): the reference renders per-worker
 // window-activity rectangles from trace.dat into images/videos.  This tool
-// reads the JSON emitted by starneig_tpu.tools.trace.dump_trace() and
+// reads the JSON emitted by starneig_jax.tools.trace.dump_trace() and
 // renders one PPM frame per time bucket showing which parts of the matrix
 // each phase touched (label hashed to color, intensity by activity).
 //

@@ -6,8 +6,8 @@ The in-suite test runs the full SEP chain at n=1000 — large enough to
 exercise AED at realistic window sizes, bucket transitions, and multi-train
 wavefront sweeps (the round-2 verdict: nothing above n=400 was tested).
 The n=2000 component sweep runs when STARNEIG_ACCEPTANCE=1 (CI-scale,
-several minutes on CPU); tools/probe_accuracy.py writes the per-round
-ACCURACY_r*.json artifact at the same sizes.
+several minutes on CPU); tools/probe_accuracy.py reports the per-phase
+residuals at any size.
 """
 
 import os
@@ -16,10 +16,10 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from starneig_tpu.api import sep
-from starneig_tpu.errors import Error
-from starneig_tpu.testing import random_dense, residual_sep, orthogonality
-from starneig_tpu.testing.hooks import schur_structure_error
+from starneig_jax.api import sep
+from starneig_jax.errors import Error
+from starneig_jax.testing import random_dense, residual_sep, orthogonality
+from starneig_jax.testing.hooks import schur_structure_error
 
 
 def _full_chain(n, seed):
@@ -78,9 +78,9 @@ def test_gep_chain_n2000_acceptance():
 
     Full fused-QZ chain on a known-spectrum pencil with infinite
     eigenvalues, gated at the reference warn threshold."""
-    from starneig_tpu.api import gep
-    from starneig_tpu.testing.generators import known_spectrum_pencil
-    from starneig_tpu.testing import residual_gep
+    from starneig_jax.api import gep
+    from starneig_jax.testing.generators import known_spectrum_pencil
+    from starneig_jax.testing import residual_gep
 
     n = 2000
     A, B, *_known = known_spectrum_pencil(n, seed=1, inf_ratio=0.1)

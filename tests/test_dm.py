@@ -5,10 +5,10 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from starneig_tpu.errors import Error
-from starneig_tpu.parallel import make_mesh, distr_matrix_from_array, DistrMatrix
-from starneig_tpu.api import sep_dm, gep_dm
-from starneig_tpu.testing import random_dense, residual_sep, residual_gep
+from starneig_jax.errors import Error
+from starneig_jax.parallel import make_mesh, distr_matrix_from_array, DistrMatrix
+from starneig_jax.api import sep_dm, gep_dm
+from starneig_jax.testing import random_dense, residual_sep, residual_gep
 
 
 def test_mesh_and_distr_matrix():
@@ -62,7 +62,7 @@ def test_schur_dm_collective_structure():
     """The DM Schur program is genuinely partitioned: per-shard operands
     are (NP, NP/d) and the SPMD program contains cross-replica collectives
     (the round-2 verdict's requirement: prove distribution, not placement)."""
-    from starneig_tpu.parallel.dm_core import schur_dm_lowered
+    from starneig_jax.parallel.dm_core import schur_dm_lowered
 
     mesh = make_mesh(8)
     lowered, NP, nd = schur_dm_lowered(128, mesh)
@@ -80,7 +80,7 @@ def test_hessenberg_dm_collective_structure():
     collectives (GSPMD path: jit over NamedSharding inputs)."""
     import jax
     from jax.sharding import NamedSharding, PartitionSpec as P
-    from starneig_tpu.ops.hessenberg import _panel
+    from starneig_jax.ops.hessenberg import _panel
 
     mesh = make_mesh(8)
     sh = NamedSharding(mesh, P(None, "d"))
@@ -95,7 +95,7 @@ def test_hessenberg_dm_collective_structure():
 def test_schur_dm_matches_dense():
     """Sharded fused solve == dense fused solve (same mathematics through
     ShardedExtent's psum panel gathers)."""
-    from starneig_tpu.api import sep
+    from starneig_jax.api import sep
 
     mesh = make_mesh(8)
     n = 96
@@ -114,7 +114,7 @@ def test_schur_dm_matches_dense():
 
 
 def test_block_cyclic_roundtrip():
-    from starneig_tpu.parallel.block_cyclic import BlockCyclicDescr, scatter, gather
+    from starneig_jax.parallel.block_cyclic import BlockCyclicDescr, scatter, gather
     A = random_dense(37, seed=9)[:37, :29]
     d = BlockCyclicDescr(m=37, n=29, mb=8, nb=8, prows=2, pcols=3)
     locs = scatter(A, d)
@@ -123,7 +123,7 @@ def test_block_cyclic_roundtrip():
 
 
 def test_cli_smoke():
-    from starneig_tpu import cli
+    from starneig_jax import cli
     res = cli.main(["--experiment", "schur", "--n", "48", "--platform", "cpu",
                     "--hooks", "residual,structure", "--json", "--keep-going"])
     assert res["ok"]
@@ -132,7 +132,7 @@ def test_cli_smoke():
 def test_cli_hooks_parity():
     """The reference test-driver hooks the round-2 verdict flagged missing:
     reordering, analysis, repeat statistics, clustered selection."""
-    from starneig_tpu import cli
+    from starneig_jax import cli
     res = cli.main(["--experiment", "reorder", "--n", "64", "--platform",
                     "cpu", "--hooks",
                     "residual,structure,reordering,analysis",
@@ -147,7 +147,7 @@ def test_cli_hooks_parity():
 def test_cli_known_eigenvalues_gate():
     """The x1e4 fudge is gone: the eigenvalues hook gates at the
     reference's known-eigenvalues thresholds (hooks.c:1071-1072)."""
-    from starneig_tpu import cli
+    from starneig_jax import cli
     res = cli.main(["--experiment", "schur", "--n", "80", "--init", "known",
                     "--platform", "cpu", "--hooks", "residual,eigenvalues",
                     "--json", "--keep-going"])
@@ -177,7 +177,7 @@ def test_reorder_dm_collectives():
     operands (it is not a gather-to-host wrapper)."""
     import jax.numpy as jnp
     from jax.sharding import Mesh
-    from starneig_tpu.parallel.dm_core import _make_reorder_pass
+    from starneig_jax.parallel.dm_core import _make_reorder_pass
 
     mesh = make_mesh(8)
     axname = mesh.axis_names[0]
@@ -190,3 +190,13 @@ def test_reorder_dm_collectives():
     assert ("all_reduce" in txt) or ("all-reduce" in txt) or \
         ("all_gather" in txt) or ("all-gather" in txt)
     assert f"tensor<{NP}x{NP // 8}xf64>" in txt  # per-shard column block
+
+
+def test_distr_matrix_from_host_array_goes_to_shards():
+    """A host array is placed straight into its column sharding."""
+    mesh = make_mesh(4)
+    A = np.arange(64.0).reshape(8, 8)
+    D = distr_matrix_from_array(A, mesh)
+    assert len(D.data.sharding.device_set) == 4
+    assert all(s.data.shape == (8, 2) for s in D.data.addressable_shards)
+    np.testing.assert_array_equal(D.to_array(), A)

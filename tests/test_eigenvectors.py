@@ -3,11 +3,11 @@
 import numpy as np
 import jax.numpy as jnp
 
-from starneig_tpu.errors import Error
-from starneig_tpu.ops.eigenvectors import eigenvectors_schur
-from starneig_tpu.ops.small_schur import small_schur
-from starneig_tpu.ops.eigvals import extract_eigenvalues
-from starneig_tpu.testing import random_hessenberg
+from starneig_jax.errors import Error
+from starneig_jax.ops.eigenvectors import eigenvectors_schur
+from starneig_jax.ops.small_schur import small_schur
+from starneig_jax.ops.eigvals import extract_eigenvalues
+from starneig_jax.testing import random_hessenberg
 
 RNG = np.random.default_rng(41)
 

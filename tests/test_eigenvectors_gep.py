@@ -3,11 +3,11 @@
 import numpy as np
 import jax.numpy as jnp
 
-from starneig_tpu.errors import Error
-from starneig_tpu.ops.eigenvectors import eigenvectors_schur_gep
-from starneig_tpu.ops.hess_triangular import hessenberg_triangular
-from starneig_tpu.ops.qz import small_qz
-from starneig_tpu.testing import random_dense, known_spectrum_pencil
+from starneig_jax.errors import Error
+from starneig_jax.ops.eigenvectors import eigenvectors_schur_gep
+from starneig_jax.ops.hess_triangular import hessenberg_triangular
+from starneig_jax.ops.qz import small_qz
+from starneig_jax.testing import random_dense, known_spectrum_pencil
 
 
 def _make(n, seed, **kw):

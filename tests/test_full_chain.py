@@ -5,9 +5,9 @@ Eigenvectors, SEP and GEP, with all hooks."""
 import numpy as np
 import jax.numpy as jnp
 
-from starneig_tpu.api import sep, gep
-from starneig_tpu.errors import Error
-from starneig_tpu.testing import (
+from starneig_jax.api import sep, gep
+from starneig_jax.errors import Error
+from starneig_jax.testing import (
     random_dense,
     residual_sep,
     residual_gep,

@@ -4,14 +4,14 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from starneig_tpu.ops.hess_triangular import hessenberg_triangular
-from starneig_tpu.testing import (
+from starneig_jax.ops.hess_triangular import hessenberg_triangular
+from starneig_jax.testing import (
     random_dense,
     residual_gep,
     orthogonality,
     hessenberg_structure_error,
 )
-from starneig_tpu.testing.hooks import triangular_structure_error
+from starneig_jax.testing.hooks import triangular_structure_error
 
 
 def _check(A, B, H, T, Q, Z, atol_u=1000):
@@ -55,7 +55,7 @@ def test_ht_matches_scipy():
     # scipy.qz gives full QZ; compare generalized eigenvalues instead of form
     # (greedy matching: sort_complex misorders conjugate pairs whose real
     # parts differ only in the last ulp)
-    from starneig_tpu.testing import eigenvalue_error
+    from starneig_jax.testing import eigenvalue_error
     ev_scipy = scipy.linalg.eigvals(A, B)
     ev_ours = scipy.linalg.eigvals(np.asarray(H), np.asarray(T))
     assert eigenvalue_error(ev_ours, ev_scipy) < 1000

@@ -4,9 +4,9 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from starneig_tpu.config import HessenbergConf
-from starneig_tpu.ops.hessenberg import hessenberg
-from starneig_tpu.testing import (
+from starneig_jax.config import HessenbergConf
+from starneig_jax.ops.hessenberg import hessenberg
+from starneig_jax.testing import (
     random_dense,
     residual_sep,
     orthogonality,
@@ -53,7 +53,7 @@ def test_panel_exact_divide():
 def test_accumulate_onto_existing_q():
     n = 20
     A = random_dense(n, seed=7)
-    from starneig_tpu.testing.generators import random_orthogonal
+    from starneig_jax.testing.generators import random_orthogonal
     Q0 = random_orthogonal(n, seed=8)
     H, Q = hessenberg(A, Q=jnp.array(Q0))
     # Q = Q0 @ Q_hess; residual w.r.t. Q0^T A Q0 ... i.e. Q0 Q_h^T? Check:
@@ -82,7 +82,7 @@ def test_partial_range_is_similarity():
     panel used to zero the lower rows of unreduced columns past ``end``)."""
     import numpy as np
     import jax.numpy as jnp
-    from starneig_tpu.ops.hessenberg import hessenberg
+    from starneig_jax.ops.hessenberg import hessenberg
     rng = np.random.default_rng(7)
     n = 150
     A = rng.standard_normal((n, n))

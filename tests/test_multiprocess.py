@@ -19,7 +19,7 @@ jax.config.update("jax_enable_x64", True)
 pid = int(sys.argv[1])
 port = sys.argv[2]
 
-from starneig_tpu import node
+from starneig_jax import node
 node.node_init(coordinator_address=f"127.0.0.1:{port}", num_processes=2,
                process_id=pid)
 

@@ -5,7 +5,7 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from starneig_tpu.ops import primitives as prim
+from starneig_jax.ops import primitives as prim
 
 # jit all primitives once — eager dispatch of tiny ops is prohibitively slow
 _householder = jax.jit(prim.householder)

@@ -4,10 +4,10 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from starneig_tpu.ops.qz import small_qz, standardize_gep_2x2
-from starneig_tpu.ops.hess_triangular import hessenberg_triangular
-from starneig_tpu.ops.eigvals import extract_eigenvalues_gen
-from starneig_tpu.testing import (
+from starneig_jax.ops.qz import small_qz, standardize_gep_2x2
+from starneig_jax.ops.hess_triangular import hessenberg_triangular
+from starneig_jax.ops.eigvals import extract_eigenvalues_gen
+from starneig_jax.testing import (
     random_dense,
     known_spectrum_pencil,
     residual_gep,
@@ -15,7 +15,7 @@ from starneig_tpu.testing import (
     schur_structure_error,
     eigenvalue_error,
 )
-from starneig_tpu.testing.hooks import triangular_structure_error
+from starneig_jax.testing.hooks import triangular_structure_error
 
 RNG = np.random.default_rng(77)
 

@@ -4,12 +4,12 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from starneig_tpu.config import ReorderConf
-from starneig_tpu.errors import Error
-from starneig_tpu.ops.reorder import reorder_schur
-from starneig_tpu.ops.small_schur import small_schur
-from starneig_tpu.ops.eigvals import extract_eigenvalues
-from starneig_tpu.testing import (
+from starneig_jax.config import ReorderConf
+from starneig_jax.errors import Error
+from starneig_jax.ops.reorder import reorder_schur
+from starneig_jax.ops.small_schur import small_schur
+from starneig_jax.ops.eigvals import extract_eigenvalues
+from starneig_jax.testing import (
     random_hessenberg,
     residual_sep,
     orthogonality,
@@ -140,7 +140,7 @@ def test_reorder_complex_pairs_travel():
 
 
 def test_reorder_parallel_matches():
-    from starneig_tpu.ops.reorder import reorder_schur_parallel
+    from starneig_jax.ops.reorder import reorder_schur_parallel
     n = 96
     S0, Q0, H = _make_schur(n, seed=31)
     ev0 = _eigs(S0)

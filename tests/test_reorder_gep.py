@@ -5,20 +5,20 @@ import jax.numpy as jnp
 import pytest
 import scipy.linalg
 
-from starneig_tpu.config import ReorderConf
-from starneig_tpu.errors import Error
-from starneig_tpu.ops.reorder import reorder_schur_gep
-from starneig_tpu.ops.hess_triangular import hessenberg_triangular
-from starneig_tpu.ops.qz import small_qz
-from starneig_tpu.ops.eigvals import extract_eigenvalues_gen
-from starneig_tpu.testing import (
+from starneig_jax.config import ReorderConf
+from starneig_jax.errors import Error
+from starneig_jax.ops.reorder import reorder_schur_gep
+from starneig_jax.ops.hess_triangular import hessenberg_triangular
+from starneig_jax.ops.qz import small_qz
+from starneig_jax.ops.eigvals import extract_eigenvalues_gen
+from starneig_jax.testing import (
     random_dense,
     residual_gep,
     orthogonality,
     schur_structure_error,
     eigenvalue_error,
 )
-from starneig_tpu.testing.hooks import triangular_structure_error
+from starneig_jax.testing.hooks import triangular_structure_error
 
 RNG = np.random.default_rng(55)
 

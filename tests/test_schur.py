@@ -4,10 +4,10 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from starneig_tpu.config import SchurConf
-from starneig_tpu.errors import Error
-from starneig_tpu.ops.schur import schur, standardize_blocks
-from starneig_tpu.testing import (
+from starneig_jax.config import SchurConf
+from starneig_jax.errors import Error
+from starneig_jax.ops.schur import schur, standardize_blocks, status_info
+from starneig_jax.testing import (
     random_hessenberg,
     known_spectrum_matrix,
     residual_sep,
@@ -98,8 +98,8 @@ def test_schur_zero_eigenvalues():
 def test_schur_dense_gaussian_n400():
     """Well-conditioned dense matrix through the full hessenberg+schur chain;
     matched eigenvalues must satisfy the reference's accuracy gates."""
-    from starneig_tpu.ops.hessenberg import hessenberg
-    from starneig_tpu.testing import eigenvalue_error
+    from starneig_jax.ops.hessenberg import hessenberg
+    from starneig_jax.testing import eigenvalue_error
     n = 400
     A = RNG.standard_normal((n, n))
     H, Q = hessenberg(jnp.asarray(A))
@@ -108,3 +108,27 @@ def test_schur_dense_gaussian_n400():
     _check(A, S, Q2)
     ev = np.asarray(er) + 1j * np.asarray(ei)
     assert eigenvalue_error(ev, np.linalg.eigvals(A)) < 10000
+
+
+def test_single_dispatch_did_not_converge():
+    """iteration_limit=0 fails the first segment after one round: the
+    one-dispatch driver returns DID_NOT_CONVERGE with a still-similar,
+    partially reduced matrix (reference error.h:105-111)."""
+    n = 160
+    H = random_hessenberg(n, seed=5)
+    S, Q, er, ei, info = schur(jnp.array(H),
+                               conf=SchurConf(iteration_limit=0))
+    assert info == Error.DID_NOT_CONVERGE
+    S, Q = np.asarray(S), np.asarray(Q)
+    assert residual_sep(H, S, Q) < 2000
+    assert orthogonality(Q) < 2000
+    assert schur_structure_error(S) > 0.0  # not (yet) quasi-triangular
+
+
+@pytest.mark.parametrize("state, want", [
+    ([0, 3, 0, 0, 41], Error.SUCCESS),
+    ([17, 301, 17, 1, 90], Error.DID_NOT_CONVERGE),   # segment failed
+    ([12, 2, 14, 0, 330], Error.DID_NOT_CONVERGE),    # global round cap
+])
+def test_status_info(state, want):
+    assert status_info(np.asarray(state, np.int32)) == want

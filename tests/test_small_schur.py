@@ -5,9 +5,9 @@ import jax
 import jax.numpy as jnp
 import scipy.linalg
 
-from starneig_tpu.ops.small_schur import small_schur
-from starneig_tpu.ops.eigvals import extract_eigenvalues
-from starneig_tpu.testing import (
+from starneig_jax.ops.small_schur import small_schur
+from starneig_jax.ops.eigvals import extract_eigenvalues
+from starneig_jax.testing import (
     random_hessenberg,
     known_spectrum_matrix,
     residual_sep,

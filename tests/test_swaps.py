@@ -5,7 +5,7 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from starneig_tpu.ops.swaps import swap_adjacent
+from starneig_jax.ops.swaps import swap_adjacent
 
 _swap = jax.jit(swap_adjacent)
 RNG = np.random.default_rng(3)

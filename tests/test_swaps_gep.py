@@ -6,7 +6,7 @@ import jax.numpy as jnp
 import pytest
 import scipy.linalg
 
-from starneig_tpu.ops.swaps_gep import swap_adjacent_gep
+from starneig_jax.ops.swaps_gep import swap_adjacent_gep
 
 _swap = jax.jit(swap_adjacent_gep)
 RNG = np.random.default_rng(5)
@@ -49,7 +49,7 @@ def test_gep_swap(p, q):
     # swapped eigenvalues
     assert np.all(Ah[q:d, :q] == 0)
     assert np.all(np.abs(np.tril(Bh[:d, :d], -1)) == 0)
-    from starneig_tpu.testing import eigenvalue_error
+    from starneig_jax.testing import eigenvalue_error
     got_up = scipy.linalg.eigvals(Ah[:q, :q], Bh[:q, :q])
     got_lo = scipy.linalg.eigvals(Ah[q:d, q:d], Bh[q:d, q:d])
     assert eigenvalue_error(got_up, ev_lo) < 1e4
